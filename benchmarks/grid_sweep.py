@@ -1,13 +1,13 @@
-"""Grid build-parameter sweep on the real TPU (config4 forward bands).
+"""Grid build-parameter sweep on the device (config4 forward bands).
 
-Times `--phase fwd` subprocesses (one TPU process at a time, health-probed
+Times `--phase fwd` subprocesses (one device process at a time, health-probed
 via bench.py's guarded machinery) across RT_GRID_CAPACITY / RT_GRID_DENSITY /
 RT_GRID_PREGATHER combos. The per-DDA-step HBM gather reads all `capacity`
 slots whether occupied or not, so the sweet spot is the smallest capacity
 whose overflow list (brute-tested against every ray once per walk) stays
 small; this harness measures where that is for the config4 mesh.
 
-Usage:  python -m benchmarks.grid_sweep            # full sweep on TPU
+Usage:  python -m benchmarks.grid_sweep            # full sweep on the GPU
         RT_SWEEP_COMBOS='16,4,0;12,8,1' python -m benchmarks.grid_sweep
         RT_SWEEP_ENVS='RT_BENCH_TRACER=bvh,RT_BVH_LEAF=16;RT_GRID_SKIP=4' \
             python -m benchmarks.grid_sweep        # arbitrary env combos

@@ -1,12 +1,11 @@
-"""Stage-level BAND-width probe (r4): what does each d0 stage cost when it
-runs ONCE at full band width, outside the renderer's tile scan?
+"""Stage-level BAND-width probe: what does each d0 stage cost when it runs
+ONCE at full band width, outside the renderer's tile scan?
 
-Motivation: r3-b measured a standalone full-width (518k-lane) coherent
-primary walk at 1.96 ms, while the shipping tiled renderer pays ~0.2 s for
-its depth-0 round on the same band (127 tiles × per-walk fixed costs,
-BENCH_LOG r4 queue 1). If the walks are cheap at band width and only the
-renderer CONTEXT makes them expensive, the frame should be restructured
-into per-stage full-width walks + (if needed) tiled shading.
+Motivation: a standalone full-width coherent primary walk can be far
+cheaper than the tiled renderer's depth-0 round on the same band (many
+tiles × per-walk fixed costs). If the walks are cheap at band width and
+only the renderer CONTEXT makes them expensive, the frame should be
+restructured into per-stage full-width walks + (if needed) tiled shading.
 
 Programs (config4 band, --rows rows of 1080p):
   nearest    — one full-width grid nearest walk (winner ints only)
@@ -26,23 +25,19 @@ import sys
 
 import jax
 
-_CACHE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), ".jax_cache")
-try:
-    jax.config.update("jax_compilation_cache_dir", _CACHE)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-except Exception:
-    pass
+from raytracer.utils.cache import setup_compile_cache  # noqa: E402
+
+setup_compile_cache()
 
 import jax.numpy as jnp
 
 from benchmarks.rays_per_sec import _timer
-from raytracer_tpu.accel.grid import GridTracer
-from raytracer_tpu.models import presets
-from raytracer_tpu.ops import geometry as geom
-from raytracer_tpu.ops.shade import shade_diffuse
-from raytracer_tpu.ops.trace import surface_at
-from raytracer_tpu.core.types import DIFFUSE_AND_GLOSSY, as_jax
+from raytracer.accel.grid import GridTracer
+from raytracer.models import presets
+from raytracer.ops import geometry as geom
+from raytracer.ops.shade import shade_diffuse
+from raytracer.ops.trace import surface_at
+from raytracer.core.types import DIFFUSE_AND_GLOSSY, as_jax
 
 
 def main(argv=None):
@@ -127,7 +122,7 @@ def main(argv=None):
         o, d = raygen(jnp.zeros(()))
         hit = tr.nearest(o, d, opts.t_min, opts.tri_chunk)
         surf = surface_at(s, o, d, hit, opts.t_min)
-        from raytracer_tpu.ops.safemath import dot as _dot
+        from raytracer.ops.safemath import dot as _dot
         sorig = surf.p + jnp.where(_dot(d, surf.n) < 0, 1.0, -1.0)[:, None] \
             * opts.bias * surf.n
         is_diff = surf.valid & (surf.mtype == DIFFUSE_AND_GLOSSY)
@@ -160,7 +155,7 @@ def main(argv=None):
 
     @jax.jit
     def _tiled(s, c, tr):
-        from raytracer_tpu.renderer import render
+        from raytracer.renderer import render
 
         return render(s, c, o_d0, tracer=tr, row0=row0, rows=rows)
 

@@ -16,7 +16,7 @@ the bounce walks aren't width-bound. This probe times `grid_walk` standalone
 Incoherent rays = origins uniform inside the grid AABB, directions uniform
 on the sphere — the bounce-wavefront access pattern.
 
-Run on TPU:  python -m benchmarks.walk_cost
+Run on GPU:  python -m benchmarks.walk_cost
 Quick:       RT_WALK_COST_QUICK=1 python -m benchmarks.walk_cost
 """
 
@@ -31,12 +31,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-_CACHE = os.path.join(REPO, ".jax_cache")
-try:
-    jax.config.update("jax_compilation_cache_dir", _CACHE)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-except Exception:
-    pass
+from raytracer.utils.cache import setup_compile_cache  # noqa: E402
+
+setup_compile_cache()
 
 
 def _synced(call):
@@ -51,9 +48,9 @@ def _synced(call):
 
 
 def main():
-    from raytracer_tpu.accel.grid import GridTracer, build_grid, grid_walk
-    from raytracer_tpu.models import presets
-    from raytracer_tpu.ops import geometry as geom
+    from raytracer.accel.grid import GridTracer, build_grid, grid_walk
+    from raytracer.models import presets
+    from raytracer.ops import geometry as geom
 
     quick = os.environ.get("RT_WALK_COST_QUICK") == "1"
     scene, cam, opts = presets.config4_mesh()

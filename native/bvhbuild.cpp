@@ -1,7 +1,7 @@
 // Threaded-BVH builder — C++ runtime component (SURVEY.md §2.2 "Accel
 // grid/BVH": the reference's accelerator build is native; ours too).
 // Semantics are byte-identical to the NumPy fallback in
-// raytracer_tpu/accel/bvh.py: same median split (stable sort on the widest
+// raytracer/accel/bvh.py: same median split (stable sort on the widest
 // centroid axis), same preorder node allocation (children allocated when the
 // parent splits, left-first DFS), same per-octant hit/miss threading — so the
 // two builders produce identical arrays and renders can never depend on which

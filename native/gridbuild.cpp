@@ -2,7 +2,7 @@
 // "Accel grid/BVH": the reference's accelerator build is native; ours too).
 // Python computes bbox/resolution (cheap); this fills the fixed-capacity cell
 // table + overflow list with semantics identical to the NumPy fallback in
-// raytracer_tpu/accel/grid.py (ascending triangle ids per cell; sorted
+// raytracer/accel/grid.py (ascending triangle ids per cell; sorted
 // overflow) so the two builders produce byte-identical arrays.
 
 #include <algorithm>
@@ -16,7 +16,7 @@ namespace {
 
 // SAT triangle/box overlap (touching counts as overlap; all separation
 // comparisons strict). Byte-identical twin of
-// raytracer_tpu/accel/satbin.py:tri_cells_overlap — identical f64 expression
+// raytracer/accel/satbin.py:tri_cells_overlap — identical f64 expression
 // trees in identical association order; this translation unit is compiled
 // with -ffp-contract=off so no FMA fusion diverges from NumPy. Keep in sync.
 struct SatAxes {
@@ -125,7 +125,7 @@ int rt_grid_build(const float* verts, int nv, const int* tris, int nt,
 
 // Exact-binning variant: same contract as rt_grid_build, but a triangle is
 // listed only in cells it geometrically overlaps (SAT; touching counts), not
-// every cell its AABB touches. Twin of raytracer_tpu/accel/satbin.py:bin_exact.
+// every cell its AABB touches. Twin of raytracer/accel/satbin.py:bin_exact.
 int rt_grid_build_sat(const float* verts, int nv, const int* tris, int nt,
                       const double* bmin, const double* cell_size, int nx,
                       int ny, int nz, int capacity, int** cell_tris_out,

@@ -1,6 +1,6 @@
 // Fast OBJ parser — the C++ runtime component mirroring the reference's native
 // loader (SURVEY.md §2.2 "OBJ loader"). Exposed via a C ABI consumed by
-// raytracer_tpu/utils/native.py (ctypes); raytracer_tpu/io/obj.py holds the
+// raytracer/utils/native.py (ctypes); raytracer/io/obj.py holds the
 // Python fallback with identical semantics (fan triangulation, negative
 // indices, vertex-aligned `vn` kept, else dropped).
 

@@ -28,10 +28,10 @@ def main():
 
     import numpy as np
 
-    from raytracer_tpu.models import presets
-    from raytracer_tpu.parallel.mesh import make_rt_mesh
-    from raytracer_tpu.parallel.shard import render_sharded
-    from raytracer_tpu.renderer import render
+    from raytracer.models import presets
+    from raytracer.parallel.mesh import make_rt_mesh
+    from raytracer.parallel.shard import render_sharded
+    from raytracer.renderer import render
 
     scene, cam, opts = presets.config1_sphere_plane()
     opts = dataclasses.replace(opts, width=32, height=32, tile_rays=256)

@@ -1,8 +1,8 @@
 """Scene → text export for the C++ oracle (native/oracle.cpp reads this).
 
 Thin shim: the format now lives in the framework proper
-(raytracer_tpu/io/scenefile.py — save_scene/load_scene round-trip); this
+(raytracer/io/scenefile.py — save_scene/load_scene round-trip); this
 module keeps the historical oracle-side entry point.
 """
 
-from raytracer_tpu.io.scenefile import save_scene as export_scene  # noqa: F401
+from raytracer.io.scenefile import save_scene as export_scene  # noqa: F401

@@ -11,7 +11,7 @@ Slow by design: use ≤128² in tests. The C++ oracle renders the big goldens.
 
 import numpy as np
 
-from raytracer_tpu.core.types import Scene
+from raytracer.core.types import Scene
 
 T_MIN = 1e-4
 DET_EPS = 1e-8

@@ -1,8 +1,8 @@
 """Band-split rendering: render_banded == render bitwise; traced row0.
 
-The TPU program-size fault (CLAUDE.md rule 5) forces mesh scenes to render
-as one XLA program per horizontal band; these tests pin the two invariants
-that make that safe and cheap:
+Mesh scenes render as one XLA program per horizontal band
+(renderer._auto_band_rows); these tests pin the two invariants that make
+that safe and cheap:
   1. banded output is a bitwise slice of the full frame (any band split),
   2. row0 may be a traced scalar — one compiled program serves every band
      of a given height, bitwise-identical to baking row0 as a constant.
@@ -14,9 +14,9 @@ import jax
 import numpy as np
 import pytest
 
-from raytracer_tpu.models import presets
-from raytracer_tpu.ops import geometry as geom
-from raytracer_tpu.renderer import render, render_banded
+from raytracer.models import presets
+from raytracer.ops import geometry as geom
+from raytracer.renderer import render, render_banded
 
 
 def _small(name, **kw):
@@ -46,7 +46,7 @@ def test_banded_equals_full_analytic():
 
 
 def test_banded_equals_full_mesh_grid():
-    from raytracer_tpu.accel.grid import GridTracer
+    from raytracer.accel.grid import GridTracer
 
     scene, cam, opts = _small("config4", max_depth=2)
     tracer = GridTracer.build(scene)
@@ -68,8 +68,8 @@ def test_value_and_grad_banded_matches_full():
     association) on a mesh scene — the gradient analog of render_banded."""
     import jax.numpy as jnp
 
-    from raytracer_tpu.accel.grid import GridTracer
-    from raytracer_tpu.renderer import value_and_grad_banded
+    from raytracer.accel.grid import GridTracer
+    from raytracer.renderer import value_and_grad_banded
 
     scene, cam, opts = _small("config4", max_depth=1)
     tracer = GridTracer.build(scene)
@@ -94,7 +94,7 @@ def test_value_and_grad_banded_matches_full():
 
 def test_auto_bands_mesh_scene():
     """Auto band sizing splits mesh scenes under the fault budget."""
-    from raytracer_tpu.renderer import _auto_band_rows
+    from raytracer.renderer import _auto_band_rows
 
     scene, _, opts = presets.PRESETS["config4"]()   # 1920x1080 d4
     rows = _auto_band_rows(scene, opts)

@@ -3,7 +3,7 @@
 import json
 
 from benchmarks.rays_per_sec import BWD_UNIT_BUDGET, _bands
-from raytracer_tpu.core.types import RenderOptions
+from raytracer.core.types import RenderOptions
 
 
 def test_bands_cover_image_exactly():
@@ -190,3 +190,17 @@ def test_lights_env_hook_truncates(monkeypatch):
     monkeypatch.setenv("RT_BENCH_LIGHTS", "1")
     scene, _, _, _ = _setup("config2")
     assert scene.lights.count == 1
+
+
+def test_all_rungs_failed_exits_nonzero(monkeypatch, capsys):
+    """No rung produced a number → no JSON line and a non-zero exit, never
+    a `value: 0` line that reads as a result."""
+    import bench
+
+    monkeypatch.delenv("RT_BENCH_CONFIG", raising=False)
+    monkeypatch.delenv("RT_BENCH_SMOKE", raising=False)
+    monkeypatch.setattr(bench, "_phase", lambda *a, **k: None)
+    monkeypatch.setattr(bench, "_wait_healthy", lambda *a, **k: True)
+    monkeypatch.setattr(bench.time, "sleep", lambda s: None)
+    assert bench.main() == 1
+    assert capsys.readouterr().out.strip() == ""

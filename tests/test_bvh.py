@@ -11,11 +11,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracer_tpu.accel.bvh import BVHTracer, build_bvh, bvh_walk
-from raytracer_tpu.core.types import Meshes
-from raytracer_tpu.io import meshgen
-from raytracer_tpu.models import presets
-from raytracer_tpu.renderer import render
+from raytracer.accel.bvh import BVHTracer, build_bvh, bvh_walk
+from raytracer.core.types import Meshes
+from raytracer.io import meshgen
+from raytracer.models import presets
+from raytracer.renderer import render
 from tests.helpers import assert_images_close
 
 
@@ -97,7 +97,7 @@ def test_bvh_all_octants(mesh_scene):
     """Nearest hit must be direction-order independent: fire the same rays
     with all 8 sign combinations through the mesh and compare to brute."""
     scene, _, _ = mesh_scene
-    from raytracer_tpu.ops.trace import _scan_tri_nearest
+    from raytracer.ops.trace import _scan_tri_nearest
 
     verts = np.asarray(scene.meshes.verts)
     tris = np.asarray(scene.meshes.tris)
@@ -121,7 +121,7 @@ def test_bvh_all_octants(mesh_scene):
 
 def test_bvh_occlusion_matches_brute(mesh_scene):
     scene, cam, opts = mesh_scene
-    from raytracer_tpu.ops import trace as trace_ops
+    from raytracer.ops import trace as trace_ops
 
     rng = np.random.default_rng(3)
     orig = jnp.asarray(rng.normal(size=(256, 3)) * 2 +
@@ -142,10 +142,10 @@ def test_stacked_bvh_sharded_render(mesh_scene):
     for both the all-gather combine and the ppermute ring."""
     import jax
 
-    from raytracer_tpu.parallel.mesh import make_rt_mesh
-    from raytracer_tpu.parallel.shard import render_sharded
+    from raytracer.parallel.mesh import make_rt_mesh
+    from raytracer.parallel.shard import render_sharded
 
-    from raytracer_tpu.parallel.shard import build_sharded_accel
+    from raytracer.parallel.shard import build_sharded_accel
 
     scene, cam, opts = mesh_scene
     mesh = make_rt_mesh(tiles=2, prims=4, devices=jax.devices()[:8])
@@ -160,9 +160,9 @@ def test_stacked_bvh_sharded_render(mesh_scene):
 
 
 def test_stacked_bvh_covers_all_tris(mesh_scene):
-    from raytracer_tpu.accel.bvh import build_stacked_bvh
-    from raytracer_tpu.parallel import tracer as tr
-    from raytracer_tpu.core.types import as_jax
+    from raytracer.accel.bvh import build_stacked_bvh
+    from raytracer.parallel import tracer as tr
+    from raytracer.core.types import as_jax
 
     scene, _, _ = mesh_scene
     g = tr.pad_trace_geom(tr.build_trace_geom(as_jax(scene)), 4)
@@ -212,8 +212,8 @@ def test_bvh_gather_fusion_bitwise_identical(mesh_scene):
     nearest and any-hit modes, with and without pregather."""
     import dataclasses
 
-    from raytracer_tpu.accel.bvh import bvh_walk
-    from raytracer_tpu.ops import geometry as geom
+    from raytracer.accel.bvh import bvh_walk
+    from raytracer.ops import geometry as geom
 
     scene, cam, opts = mesh_scene
     dirs = geom.raygen(cam.pos, cam.c2w, cam.fov_deg, opts.width, opts.height)
@@ -240,7 +240,7 @@ def test_bvh_pregather_bitwise_identical(mesh_scene):
     """leaf_soa pre-gather is a pure layout change: the walk must return
     bit-identical (t, idx, kind) to the gather-per-step path."""
     scene, cam, opts = mesh_scene
-    from raytracer_tpu.ops import geometry as geom
+    from raytracer.ops import geometry as geom
 
     tr0 = BVHTracer.build(scene, pregather=False)
     tr1 = BVHTracer.build(scene, pregather=True)

@@ -11,7 +11,7 @@ import json
 import numpy as np
 import pytest
 
-from raytracer_tpu import cli
+from raytracer import cli
 
 
 def _run(argv, capsys):

@@ -15,11 +15,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracer_tpu.core.types import (
+from raytracer.core.types import (
     DIFFUSE_AND_GLOSSY, REFLECTION_AND_REFRACTION, Camera, Lights, Planes,
     RenderOptions, Spheres, make_scene)
-from raytracer_tpu.models import presets
-from raytracer_tpu.renderer import render
+from raytracer.models import presets
+from raytracer.renderer import render
 
 
 @pytest.fixture(scope="module")
@@ -77,8 +77,8 @@ def test_fractional_compact_mirror_scene():
     mirror sphere leaves most bounce-1 lanes dead, so cap=0.5 is exact
     (dropped==0) and matches the uncompacted image; a cap below the alive
     fraction must report drops."""
-    from raytracer_tpu.models.presets import _mats
-    from raytracer_tpu.core.types import REFLECTION
+    from raytracer.models.presets import _mats
+    from raytracer.core.types import REFLECTION
 
     mats = _mats(
         [(REFLECTION, (0, 0, 0), 0.0, 0.0, 25.0, 1.0),
@@ -108,7 +108,7 @@ def test_fractional_compact_mirror_scene():
 def test_compact_overflow_reported():
     """A frame-filling glass sphere spawns 2 alive children per pixel at
     bounce 0 — cap=1 must DROP lanes and say so (cap=2 must not)."""
-    from raytracer_tpu.models.presets import _mats
+    from raytracer.models.presets import _mats
 
     mats = _mats(
         [(REFLECTION_AND_REFRACTION, (0, 0, 0), 0.0, 0.0, 25.0, 1.5),
@@ -134,8 +134,8 @@ def test_compact_overflow_reported():
 
 @pytest.mark.parametrize("side", [256, pytest.param(512, marks=pytest.mark.slow)])
 def test_config3_shipping_cap_exact(side):
-    """VERDICT r4 #7: the bench ships config3 at compact_cap 0.5 — the exact
-    floor (BENCH_LOG r4-h: 0.375 drops 30k alive lanes at 1024²). Pin
+    """The bench ships config3 at compact_cap 0.5 — the exact floor (0.375
+    drops alive lanes at 1024²). Pin
     dropped == 0 at that cap in CI so a scene/preset change can't silently
     start clipping lanes; the gate otherwise lives only in bench post-timing.
     Strided tiles make per-tile occupancy ≈ frame occupancy (renderer), so

@@ -13,12 +13,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracer_tpu.accel.cull import CullTracer, build_cull, cull_audit
-from raytracer_tpu.accel.grid import GridTracer
-from raytracer_tpu.core.types import Meshes
-from raytracer_tpu.io import meshgen
-from raytracer_tpu.models import presets
-from raytracer_tpu.renderer import block_perm, render
+from raytracer.accel.cull import CullTracer, build_cull, cull_audit
+from raytracer.accel.grid import GridTracer
+from raytracer.core.types import Meshes
+from raytracer.io import meshgen
+from raytracer.models import presets
+from raytracer.renderer import block_perm, render
 
 
 @pytest.fixture(scope="module")

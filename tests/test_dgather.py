@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracer_tpu.ops.dgather import SMALL_TABLE_ROWS, pgather
+from raytracer.ops.dgather import SMALL_TABLE_ROWS, pgather
 
 
 @pytest.mark.parametrize("k,cols", [(3, 3), (16, 3), (5, None)])
@@ -76,7 +76,7 @@ def _partition(alive, cap):
 
 @pytest.mark.parametrize("n,cap", [(64, 64), (64, 24), (257, 40)])
 def test_permute_take_forward_bitwise(n, cap):
-    from raytracer_tpu.ops.dgather import permute_take
+    from raytracer.ops.dgather import permute_take
 
     rng = np.random.default_rng(2)
     x = jnp.asarray(rng.standard_normal((n, 3)).astype(np.float32))
@@ -90,7 +90,7 @@ def test_permute_take_forward_bitwise(n, cap):
 def test_permute_take_grad_matches_native(n, cap):
     """VJP (inverse-map gather) == the native gather's scatter-add VJP,
     including zero cotangent for lanes the cap dropped."""
-    from raytracer_tpu.ops.dgather import permute_take
+    from raytracer.ops.dgather import permute_take
 
     rng = np.random.default_rng(3)
     x = jnp.asarray(rng.standard_normal((n, 3)).astype(np.float32))
@@ -104,7 +104,7 @@ def test_permute_take_grad_matches_native(n, cap):
 
 
 def test_permute_take_1d_and_jit():
-    from raytracer_tpu.ops.dgather import permute_take
+    from raytracer.ops.dgather import permute_take
 
     x = jnp.asarray(np.arange(9, dtype=np.float32))
     alive = jnp.asarray([0, 1, 1, 0, 0, 1, 0, 0, 1], bool)
@@ -121,12 +121,12 @@ def test_permute_take_1d_and_jit():
 
 
 def test_select_chain_matches_gather():
-    """Tiny-table select chains (the r4-e 2.4x lever): values exactly equal
+    """Tiny-table select chains: values exactly equal
     to table[idx] for every dtype/rank combination used in surface_at, with
     the pgather one-hot backward unchanged."""
     import numpy as np
 
-    from raytracer_tpu.ops.dgather import (_select_chain, pgather, tselect,
+    from raytracer.ops.dgather import (_select_chain, pgather, tselect,
                                            SELECT_ROWS)
 
     assert SELECT_ROWS == 8  # shipping default

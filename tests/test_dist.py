@@ -12,10 +12,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracer_tpu.models import presets
-from raytracer_tpu.parallel.mesh import make_rt_mesh
-from raytracer_tpu.parallel.shard import render_sharded
-from raytracer_tpu.renderer import render
+from raytracer.models import presets
+from raytracer.parallel.mesh import make_rt_mesh
+from raytracer.parallel.shard import render_sharded
+from raytracer.renderer import render
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
                                 reason="needs 8 (simulated) devices")
@@ -46,7 +46,7 @@ def test_sharded_equals_single(scene_small, ref_img, tiles, prims, ring):
     img = np.asarray(render_sharded(scene, cam, opts, mesh, ring=ring)[0])
     if ring:
         # ring programs have been 1-ulp off the single-device render since
-        # the tiny-table select-gather default (r4-e): the select chains
+        # the tiny-table select-gather default: the select chains
         # fuse differently inside the ppermute loop's computation than in
         # the flat program — same class as every cross-context delta.
         np.testing.assert_allclose(img, ref_img, atol=1e-7)
@@ -74,9 +74,9 @@ def test_sharded_mesh_scene(ref_img):
 def test_sharded_grid_tracer_equals_single():
     """The config4 headline backend (GridTracer) as a replicated pytree
     under shard_map pixel-tile DP == the single-device grid render."""
-    from raytracer_tpu.accel.grid import GridTracer
-    from raytracer_tpu.io import meshgen
-    from raytracer_tpu.core.types import Meshes
+    from raytracer.accel.grid import GridTracer
+    from raytracer.io import meshgen
+    from raytracer.core.types import Meshes
 
     scene, cam, opts = presets.config4_mesh(use_obj=False)
     verts, tris = meshgen.bumpy_sphere(subdiv=3, radius=1.3)

@@ -13,9 +13,9 @@ import os
 import numpy as np
 import pytest
 
-from raytracer_tpu.io.image import load_ppm
-from raytracer_tpu.models import presets
-from raytracer_tpu.renderer import render
+from raytracer.io.image import load_ppm
+from raytracer.models import presets
+from raytracer.renderer import render
 from tests.helpers import assert_images_close
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")

@@ -10,8 +10,8 @@ import dataclasses
 import numpy as np
 import pytest
 
-from raytracer_tpu.models import presets
-from raytracer_tpu.renderer import render
+from raytracer.models import presets
+from raytracer.renderer import render
 from tests.helpers import assert_images_close
 from tests.oracle.np_oracle import render_oracle
 
@@ -45,8 +45,8 @@ def test_mesh_smooth_normals():
     """Small mesh scene exercising the triangle path with vertex normals."""
     scene, cam, opts = presets.config4_mesh(use_obj=False)
     # shrink the mesh for oracle speed: rebuild with a coarse icosphere
-    from raytracer_tpu.core.types import Meshes
-    from raytracer_tpu.io import meshgen
+    from raytracer.core.types import Meshes
+    from raytracer.io import meshgen
 
     verts, tris = meshgen.bumpy_sphere(subdiv=2, radius=1.3)
     normals = meshgen.vertex_normals(verts, tris)

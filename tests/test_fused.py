@@ -10,9 +10,9 @@ import dataclasses
 import numpy as np
 import pytest
 
-from raytracer_tpu.models import presets
-from raytracer_tpu.ops import fused
-from raytracer_tpu.renderer import render
+from raytracer.models import presets
+from raytracer.ops import fused
+from raytracer.renderer import render
 from tests.helpers import assert_images_close
 
 
@@ -97,3 +97,14 @@ def test_fused_odd_width():
     img = np.asarray(_fw(scene, cam, opts).render())
     assert img.shape == ref.shape == (64, 100, 3)
     assert_images_close(img, ref, tol=1e-5, max_bad_frac=0.002, name="fusedw")
+
+
+@pytest.mark.gpu
+def test_fused_compiled_matches_wavefront_on_gpu(gpu):
+    """The kernel as Triton compiles it for the card (no interpreter)."""
+    scene, cam, opts = presets.config2_mirror_spheres()
+    opts = dataclasses.replace(opts, width=256, height=128, max_depth=2)
+    ref = np.asarray(render(scene, cam, opts)[0])
+    img = np.asarray(fused.FusedWhitted(scene, cam, opts).render())
+    assert_images_close(img, ref, tol=1.5 / 255, max_bad_frac=0.002,
+                        name="fused-gpu")

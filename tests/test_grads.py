@@ -13,8 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracer_tpu.models import presets
-from raytracer_tpu.renderer import render
+from raytracer.models import presets
+from raytracer.renderer import render
 
 RES = 32
 
@@ -108,9 +108,9 @@ def test_grad_matches_finite_diff(inverse_setup, group, field, eps, rtol):
 
 def test_grad_triangle_vertices():
     """Pixel loss → mesh vertex positions (config-4 param class), tiny mesh."""
-    from raytracer_tpu.core.types import (
+    from raytracer.core.types import (
         Lights, Materials, Meshes, RenderOptions, make_scene)
-    from raytracer_tpu.core.types import Camera
+    from raytracer.core.types import Camera
 
     verts = np.array([[-1.5, -1.0, -4.0], [1.5, -1.0, -4.0], [0.0, 1.4, -4.2]],
                      np.float32)
@@ -206,7 +206,7 @@ def test_inverse_mesh_preset_recovers_geometry(tmp_path, capsys):
     import json
     import re
 
-    from raytracer_tpu import cli
+    from raytracer import cli
 
     cli.main(["optimize", "--preset", "mesh", "--steps", "30",
               "--log-every", "1", "--out", str(tmp_path / "m.png")])
@@ -222,7 +222,7 @@ def test_grad_uv_checker_albedo2():
     """Pixel loss → mesh st-checker colors (SPEC "Mesh UV"): gradients flow
     through the barycentric st interpolation to `Meshes.albedo2`, and FD
     agrees away from checker-cell boundaries."""
-    from raytracer_tpu.models.presets import config7_uv_quad
+    from raytracer.models.presets import config7_uv_quad
 
     scene, cam, opts = config7_uv_quad()
     opts = dataclasses.replace(opts, width=RES, height=RES, max_depth=0)

@@ -9,11 +9,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracer_tpu.accel.grid import GridTracer, build_grid, grid_walk
-from raytracer_tpu.core.types import Meshes
-from raytracer_tpu.io import meshgen
-from raytracer_tpu.models import presets
-from raytracer_tpu.renderer import render
+from raytracer.accel.grid import GridTracer, build_grid, grid_walk
+from raytracer.core.types import Meshes
+from raytracer.io import meshgen
+from raytracer.models import presets
+from raytracer.renderer import render
 from tests.helpers import assert_images_close
 
 
@@ -72,8 +72,8 @@ def test_grid_visit_walk_bitwise_identical(mesh_scene):
         b = np.asarray(render(scene, cam, opts, tracer=tr1)[0])
         np.testing.assert_array_equal(a, b)
 
-    from raytracer_tpu.accel.grid import grid_walk_visit
-    from raytracer_tpu.core.types import as_jax
+    from raytracer.accel.grid import grid_walk_visit
+    from raytracer.core.types import as_jax
 
     sj = as_jax(scene)
     v0, e1, e2 = sj.meshes.tri_soa()
@@ -99,7 +99,7 @@ def test_grid_pregather_bitwise_identical(mesh_scene):
     """cell_soa pre-gather is a pure layout change: the walk must return
     bit-identical (t, idx) to the gather-per-step path on every ray."""
     scene, cam, opts = mesh_scene
-    from raytracer_tpu.ops import geometry as geom
+    from raytracer.ops import geometry as geom
 
     tr0 = GridTracer.build(scene, pregather=False)
     tr1 = GridTracer.build(scene, pregather=True)
@@ -188,7 +188,7 @@ def test_grid_exact_render_bitwise_identical(mesh_scene):
 def test_grid_exact_excludes_diagonal_corner_cell():
     """A thin anti-diagonal sliver AABB-touches all 4 cells of a 2x2 grid but
     geometrically misses the far corner cell — SAT must drop it."""
-    from raytracer_tpu.accel.satbin import tri_cells_overlap
+    from raytracer.accel.satbin import tri_cells_overlap
 
     v0 = np.array([0.0, 1.0, 0.0])
     v1 = np.array([1.0, 0.0, 0.0])
@@ -210,7 +210,7 @@ def test_grid_skip_steps_bitwise_identical(mesh_scene):
     """Empty-cell fast-forward (skip_steps) only skips INF-contributing
     evals: (t, idx) must be bit-identical to the plain walk, both modes."""
     scene, cam, opts = mesh_scene
-    from raytracer_tpu.ops import geometry as geom
+    from raytracer.ops import geometry as geom
 
     tr = GridTracer.build(scene, pregather=True)  # pregather: default layout
     v0, e1, e2 = tr._soa
@@ -237,7 +237,7 @@ def test_grid_fused_id_column_bitwise_identical(mesh_scene):
     results to the 9-col + id-gather layout (the >=2^24-tris fallback),
     nearest and any-hit modes."""
     scene, cam, opts = mesh_scene
-    from raytracer_tpu.ops import geometry as geom
+    from raytracer.ops import geometry as geom
 
     tr = GridTracer.build(scene, pregather=True)
     assert tr._grid.cell_soa.shape[-1] == 10
@@ -261,7 +261,7 @@ def test_grid_fanout_matches_sequential(mesh_scene):
     match the sequential walk exactly away from exact-t cross-cell ties
     (the bumpy-sphere scene has none from this camera), nearest + any-hit."""
     scene, cam, opts = mesh_scene
-    from raytracer_tpu.ops import geometry as geom
+    from raytracer.ops import geometry as geom
 
     tr = GridTracer.build(scene)
     v0, e1, e2 = tr._soa
@@ -319,7 +319,7 @@ def test_grid_fanout_render_and_masking(mesh_scene):
 
 def test_grid_occlusion_matches_brute(mesh_scene):
     scene, cam, opts = mesh_scene
-    from raytracer_tpu.ops import trace as trace_ops
+    from raytracer.ops import trace as trace_ops
 
     rng = np.random.default_rng(3)
     orig = jnp.asarray(rng.normal(size=(256, 3)) * 2 +

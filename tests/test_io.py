@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from raytracer_tpu.io import meshgen
-from raytracer_tpu.io.image import load_ppm, save_ppm, to_u8
-from raytracer_tpu.io.obj import load_obj, save_obj
+from raytracer.io import meshgen
+from raytracer.io.image import load_ppm, save_ppm, to_u8
+from raytracer.io.obj import load_obj, save_obj
 
 
 def test_ppm_roundtrip(tmp_path):

@@ -11,14 +11,20 @@ import os
 import numpy as np
 import pytest
 
-import raytracer_tpu.utils.native as N
+import raytracer.utils.native as N
 
 _ASSETS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "assets")
 _OBJ = os.path.join(_ASSETS, "blob.obj")
 
-pytestmark = pytest.mark.skipif(
-    N.native_lib() is None, reason="librt_native.so not built")
+@pytest.fixture(scope="module", autouse=True)
+def lib():
+    """Build the library from native/*.cpp if needed (utils/native.py does
+    this on first use, behind a lock) — decided here, not at import."""
+    lib = N.native_lib()
+    if lib is None:
+        pytest.skip("no C++ compiler to build librt_native.so")
+    return lib
 
 
 @contextlib.contextmanager
@@ -32,14 +38,13 @@ def _no_native():
 
 
 @pytest.fixture(scope="module")
-def mesh():
-    lib = N.native_lib()
+def mesh(lib):
     verts, tris, _ = lib.load_obj(_OBJ)
     return verts, tris
 
 
 def test_obj_loader_identical(mesh):
-    from raytracer_tpu.io.obj import _load_obj_py
+    from raytracer.io.obj import _load_obj_py
 
     nv, nt, nn = N.native_lib().load_obj(_OBJ)
     pv, pt, pn, puv = _load_obj_py(_OBJ)
@@ -52,7 +57,7 @@ def test_obj_loader_identical(mesh):
 
 
 def test_grid_build_identical(mesh):
-    from raytracer_tpu.accel.grid import build_grid
+    from raytracer.accel.grid import build_grid
 
     verts, tris = mesh
     cc = build_grid(verts, tris, capacity=8)
@@ -68,7 +73,7 @@ def test_grid_build_identical(mesh):
 def test_grid_build_sat_identical(mesh):
     """Exact (SAT) binning: native and NumPy twins must agree byte-for-byte
     (same f64 expression trees; gridbuild.o built with -ffp-contract=off)."""
-    from raytracer_tpu.accel.grid import build_grid
+    from raytracer.accel.grid import build_grid
 
     if not N.native_lib().has_grid_sat:
         pytest.skip("librt_native.so predates rt_grid_build_sat; run make")
@@ -84,7 +89,7 @@ def test_grid_build_sat_identical(mesh):
 
 
 def test_bvh_build_identical(mesh):
-    from raytracer_tpu.accel.bvh import build_bvh
+    from raytracer.accel.bvh import build_bvh
 
     verts, tris = mesh
     assert N.native_lib().has_bvh
@@ -100,7 +105,7 @@ def test_bvh_build_identical(mesh):
 
 def test_bvh_build_identical_odd_leaf(mesh):
     """Non-power-of-two leaf size exercises uneven median splits."""
-    from raytracer_tpu.accel.bvh import build_bvh
+    from raytracer.accel.bvh import build_bvh
 
     verts, tris = mesh
     cc = build_bvh(verts[:, :], tris[:301], leaf_size=3)

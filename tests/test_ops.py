@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracer_tpu.ops import geometry as geom
+from raytracer.ops import geometry as geom
 from tests.oracle import np_oracle as orc
 
 
@@ -174,8 +174,8 @@ class TestSSAA:
         """render_ssaa == manual 2×2 block mean of the 2× render."""
         import dataclasses
 
-        from raytracer_tpu.models import presets
-        from raytracer_tpu.renderer import render, render_ssaa
+        from raytracer.models import presets
+        from raytracer.renderer import render, render_ssaa
 
         scene, cam, opts = presets.config1_sphere_plane()
         opts = dataclasses.replace(opts, width=64, height=48)
@@ -192,8 +192,8 @@ class TestSSAA:
     def test_factor1_is_plain_render(self):
         import dataclasses
 
-        from raytracer_tpu.models import presets
-        from raytracer_tpu.renderer import render, render_ssaa
+        from raytracer.models import presets
+        from raytracer.renderer import render, render_ssaa
 
         scene, cam, opts = presets.config1_sphere_plane()
         opts = dataclasses.replace(opts, width=32, height=32)
@@ -206,8 +206,8 @@ class TestSSAA:
         """AA must strictly reduce total variation along the sphere silhouette."""
         import dataclasses
 
-        from raytracer_tpu.models import presets
-        from raytracer_tpu.renderer import render, render_ssaa
+        from raytracer.models import presets
+        from raytracer.renderer import render, render_ssaa
 
         scene, cam, opts = presets.config1_sphere_plane()
         opts = dataclasses.replace(opts, width=64, height=64)
@@ -225,8 +225,8 @@ class TestSSAA:
         the image (same projection, same downsample blocks)."""
         import dataclasses
 
-        from raytracer_tpu.models import presets
-        from raytracer_tpu.renderer import render_ssaa
+        from raytracer.models import presets
+        from raytracer.renderer import render_ssaa
 
         scene, cam, opts = presets.config1_sphere_plane()
         opts = dataclasses.replace(opts, width=48, height=36)

@@ -16,11 +16,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracer_tpu.models import presets
-from raytracer_tpu.parallel.mesh import make_rt_mesh
-from raytracer_tpu.parallel.overlap import (float_partition,
+from raytracer.models import presets
+from raytracer.parallel.mesh import make_rt_mesh
+from raytracer.parallel.overlap import (float_partition,
                                             loss_and_grad_overlapped)
-from raytracer_tpu.parallel.shard import render_sharded
+from raytracer.parallel.shard import render_sharded
 
 
 def _compare(scene, cam, opts, mesh, ring=False):

@@ -14,8 +14,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from raytracer_tpu.models import presets
-from raytracer_tpu.renderer import render
+from raytracer.models import presets
+from raytracer.renderer import render
 
 
 def _grads(config, policy, remat=True):
@@ -24,7 +24,7 @@ def _grads(config, policy, remat=True):
                                remat_policy=policy, remat_tiles=remat)
     tracer = None
     if scene.meshes.count:
-        from raytracer_tpu.accel.grid import GridTracer
+        from raytracer.accel.grid import GridTracer
 
         tracer = GridTracer.build(scene)
 

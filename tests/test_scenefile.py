@@ -11,10 +11,10 @@ import jax
 import numpy as np
 import pytest
 
-from raytracer_tpu.core import types
-from raytracer_tpu.io.scenefile import load_scene, save_scene
-from raytracer_tpu.models import presets
-from raytracer_tpu.renderer import render
+from raytracer.core import types
+from raytracer.io.scenefile import load_scene, save_scene
+from raytracer.models import presets
+from raytracer.renderer import render
 
 
 def _assert_tree_equal(a, b, what):
@@ -43,7 +43,7 @@ def test_roundtrip_presets(tmp_path, name):
 
 
 def test_roundtrip_smooth_mesh(tmp_path):
-    from raytracer_tpu.io.meshgen import icosphere, vertex_normals
+    from raytracer.io.meshgen import icosphere, vertex_normals
 
     verts, tris = icosphere(subdiv=1)
     normals = vertex_normals(verts, tris)
@@ -77,8 +77,8 @@ def test_comments_and_render_equivalence(tmp_path):
 
 
 def test_mesh_obj_section(tmp_path):
-    from raytracer_tpu.io.meshgen import icosphere
-    from raytracer_tpu.io.obj import save_obj
+    from raytracer.io.meshgen import icosphere
+    from raytracer.io.obj import save_obj
 
     verts, tris = icosphere(subdiv=1)
     save_obj(str(tmp_path / "ball.obj"), verts, tris)
@@ -143,7 +143,7 @@ def test_example_scenes(tmp_path):
 
 
 def test_cli_render_scene(tmp_path):
-    from raytracer_tpu import cli
+    from raytracer import cli
 
     scene, cam, opts = presets.PRESETS["config1"]()
     opts = dataclasses.replace(opts, width=32, height=32)
@@ -151,7 +151,7 @@ def test_cli_render_scene(tmp_path):
     save_scene(spath, scene, cam, opts)
     out = str(tmp_path / "o.ppm")
     cli.main(["render", "--scene", spath, "--out", out])
-    from raytracer_tpu.io.image import load_ppm
+    from raytracer.io.image import load_ppm
 
     img = load_ppm(out)
     assert img.shape == (32, 32, 3)

@@ -22,7 +22,7 @@ GOLDEN = os.path.join(REPO, "tests", "golden")
 NATIVE = os.path.join(REPO, "native")
 
 # (preset name, golden resolutions) — small enough for CPU CI, big enough to
-# cover every feature; the TPU bench renders full preset resolutions.
+# cover every feature; the benchmark renders full preset resolutions.
 GOLDENS = {
     "config1": [(256, 256)],
     "config2": [(256, 256), (96, 96)],
@@ -39,7 +39,7 @@ def build_oracle() -> str:
 
 
 def main(check: bool = False) -> None:
-    from raytracer_tpu.models import presets
+    from raytracer.models import presets
     from tests.oracle.export_scene import export_scene
 
     os.makedirs(GOLDEN, exist_ok=True)
@@ -53,7 +53,7 @@ def main(check: bool = False) -> None:
             subprocess.run([exe, scene_txt, out, str(w), str(h)], check=True)
             print("wrote", out)
         if check:
-            from raytracer_tpu.io.image import load_ppm
+            from raytracer.io.image import load_ppm
             from tests.oracle.np_oracle import render_oracle
 
             w, h = 64, 64

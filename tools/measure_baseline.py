@@ -1,7 +1,7 @@
 """Measure per-config forward throughput on the local chip → BASELINE numbers.
 
 Runs each benchmark preset at its full resolution (forward only, chained-slope
-timing, no readbacks until the end). One TPU process; run alone.
+timing, no readbacks until the end). One device process; run alone.
 
   python tools/measure_baseline.py
 """
@@ -21,9 +21,9 @@ from benchmarks.rays_per_sec import _chained_time  # noqa: E402
 
 
 def main():
-    from raytracer_tpu.accel.grid import GridTracer
-    from raytracer_tpu.models import presets
-    from raytracer_tpu.renderer import render
+    from raytracer.accel.grid import GridTracer
+    from raytracer.models import presets
+    from raytracer.renderer import render
 
     rows = []
     for name in ["config1", "config2", "config3", "config4"]:

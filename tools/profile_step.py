@@ -8,7 +8,7 @@ Captures a jax.profiler trace of a few warm steps and prints the top-k ops
 by total device time (utils/profiling.top_ops — no TensorBoard needed).
 The per-stage named_scope marks (renderer.py) label the rows.
 
-One TPU process at a time (CLAUDE.md rule 1); this is a single process.
+One process on the device at a time (CLAUDE.md); this is a single process.
 """
 
 import argparse
@@ -23,12 +23,9 @@ sys.path.insert(0, REPO)
 import jax
 import jax.numpy as jnp
 
-_CACHE = os.path.join(REPO, ".jax_cache")
-try:
-    jax.config.update("jax_compilation_cache_dir", _CACHE)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-except Exception:
-    pass
+from raytracer.utils.cache import setup_compile_cache  # noqa: E402
+
+setup_compile_cache()
 
 
 def main():
@@ -46,8 +43,8 @@ def main():
     args = ap.parse_args()
 
     from benchmarks import rays_per_sec as rps
-    from raytracer_tpu.renderer import render
-    from raytracer_tpu.utils.profiling import print_top_ops
+    from raytracer.renderer import render
+    from raytracer.utils.profiling import print_top_ops
 
     kw = {}
     if args.width:
@@ -76,8 +73,8 @@ def main():
             return [fns[rows](eps, r0) for r0, rows in bands][-1]
     elif args.phase == "replay":
         # the shipping non-glass training step: fused plan + replay vg
-        from raytracer_tpu.ops.fused import FusedWhitted
-        from raytracer_tpu.ops.replay import value_and_grad_replay
+        from raytracer.ops.fused import FusedWhitted
+        from raytracer.ops.replay import value_and_grad_replay
 
         target = jax.jit(lambda s, c: render(s, c, opts)[0])(scene, cam)
         jax.block_until_ready(target)
